@@ -47,7 +47,7 @@ def encode_chunked(
     equal-length chunks per launch (framing.build_data_chunk_frames): the
     reference builds frames one at a time only because it plays each in
     real time (app.js:235-265); a batched launch amortizes dispatch and
-    keeps the TX matmul MXU-shaped. The final short chunk (if any) forms
+    keeps the TX matmul large. The final short chunk (if any) forms
     its own group, so exactly two TX executables cover any file."""
     m = _resolve(mode)
     chunk_size = m.chunk_size

@@ -399,6 +399,9 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from audio_modem_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

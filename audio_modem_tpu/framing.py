@@ -1,6 +1,6 @@
 """L3 framing: payload codecs + OFDM frame synthesis + size estimators.
 
-Byte-level protocol work stays on host (it is control-plane, not TPU work);
+Byte-level protocol work stays on host (it is control-plane, not device work);
 waveform synthesis runs on device as one jitted graph per (mode, n_symbols,
 silence) shape class.
 
@@ -309,10 +309,8 @@ def synthesize_frame(payload: bytes, mode: ModemMode, silence_pre: int, silence_
     return np.asarray(_synth_frame(jnp.asarray(bits), mode, silence_pre, silence_post))
 
 
-# HBM working-set cap for one synthesis step: 4096 QPSK chunk frames fit
-# (measured: 14.8 ms/launch, 7.9 Gsps on a single chip) now that map_bits
-# is closed-form — the old [B*n_sym, n_points] table-gather lowering was
-# what blew past 16 GB at B=4096. Larger batches lax.map over groups.
+# Device working-set cap for one synthesis step (4096 QPSK chunk frames
+# per launch); larger batches lax.map over groups.
 _SYNTH_GROUP = 4096
 
 
@@ -338,12 +336,11 @@ def _synth_frames_core(
     sym = p.symbol_len
     b, n_bytes = payloads_u8.shape
     if b > _SYNTH_GROUP:
-        # Very large launches OOM HBM (the whole batch's mapped points +
-        # contraction output + assembled frames are live at once: observed
-        # 17.6 GB at B=4096 QPSK vs the 16 GB device). Run the SAME body
-        # sequentially over _SYNTH_GROUP-frame groups with lax.map — one
-        # compile, bounded working set, MXU still saturated at 2048 frames
-        # per step. B <= _SYNTH_GROUP traces exactly as before (cache-stable).
+        # Very large launches would hold the whole batch's mapped points,
+        # contraction output and assembled frames live at once. Run the SAME
+        # body sequentially over _SYNTH_GROUP-frame groups with lax.map — one
+        # compile, bounded working set. B <= _SYNTH_GROUP traces exactly as
+        # before (cache-stable).
         if b % _SYNTH_GROUP:
             pad = _SYNTH_GROUP - b % _SYNTH_GROUP
             payloads_u8 = jnp.pad(payloads_u8, ((0, pad), (0, 0)))

@@ -2,7 +2,7 @@
 
 Compiles on first use with g++ (cached in build/), falls back to pure
 numpy/zlib implementations when no toolchain is available. Everything here
-is host control-plane work — TPU owns the sample-rate math.
+is host control-plane work — the device owns the sample-rate math.
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""L1 DSP primitives: deterministic sequences, codecs, and MXU transforms."""
+"""L1 DSP primitives: deterministic sequences, codecs, and matmul transforms."""

@@ -4,7 +4,7 @@ Two implementations of each op:
 
 * numpy — host path for protocol byte work (fast, vectorized).
 * jnp   — device path used inside jitted decode pipelines so the bits never
-  leave the TPU between demap and majority vote.
+  leave the device between demap and majority vote.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Constellation tables + batched map/demap (modem.js:101-150).
 
 TX map: MSB-first bit groups -> point index -> (re, im).
-RX demap: hard-decision nearest-Euclidean point. Re-designed for the MXU:
+RX demap: hard-decision nearest-Euclidean point. Re-designed as a matmul:
 argmin_i |y - p_i|^2 == argmin_i (|p_i|^2/2 - Re(y conj(p_i))) — the score for
 every point is one small matmul [..., 2] @ [2, n_points], so a whole batch of
-symbols demaps as a single MXU contraction instead of the reference's scalar
+symbols demaps as a single contraction instead of the reference's scalar
 loop over points (modem.js:140-150). First-minimum tie order matches the
 reference's strict `<` scan.
 """
@@ -87,10 +87,8 @@ def map_bits(name: str, bits: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 
     Matches constellationMap (modem.js:133-138) — bit-exactly the same f32
     values as the point table, but computed in CLOSED FORM (the inverse of
-    demap's per-axis Gray slicing) instead of a table gather: a
-    [..., n_points]-indexed gather lowers to scalar loads on TPU and
-    measured ~10 ms of a 12.6 ms B=512 TX launch (~80% of whole-frame
-    synthesis); the elementwise form is VPU-fused and effectively free.
+    demap's per-axis Gray slicing) instead of a [..., n_points]-indexed
+    table gather: the elementwise form fuses with its neighbours.
     Level values come from a tiny where-chain over the <=8 per-axis levels,
     so each emitted float is the SAME f64-rounded-to-f32 constant the table
     holds.
@@ -158,9 +156,8 @@ def demap(name: str, re: jnp.ndarray, im: jnp.ndarray) -> jnp.ndarray:
 
     Decision-boundary ties (measure zero; the reference resolves them by
     first-minimum scan order) may differ. Everything is fused elementwise
-    math in the input's layout: no [..., n_points] tensors, no gathers — an
-    einsum+gather formulation measured ~100x slower on v5e and a fully
-    unrolled 64-point compare chain exploded CPU compile times.
+    math in the input's layout: no [..., n_points] tensors, no gathers — a
+    fully unrolled 64-point compare chain exploded CPU compile times.
     """
     c = CONSTELLATIONS[name]
     re = re.astype(jnp.float32)

@@ -2,7 +2,7 @@
 
 The reference uses the standard zlib CRC-32 (init/xorout 0xFFFFFFFF), so the
 host path delegates to the C implementation in :mod:`zlib` — byte streams are
-host-side protocol work, not TPU work.  A vectorized numpy fallback is kept
+host-side protocol work, not device work.  A vectorized numpy fallback is kept
 for clarity/verification.
 """
 

@@ -1,5 +1,5 @@
-"""Active-bin DFT as MXU matmuls — the TPU-native replacement for the
-reference's scalar radix-2 FFT (modem.js:6-66).
+"""Active-bin DFT as matmuls — the batched replacement for the reference's
+scalar radix-2 FFT (modem.js:6-66).
 
 Only bins [sub_start, sub_end] carry information (modem.js:69-85), so instead
 of a full 512-point FFT we contract against precomputed DFT matrices
@@ -12,13 +12,12 @@ restricted to the active bins:
       Re(Y_k) = x . cos_k, Im(Y_k) = -(x . sin_k)
       -> one [batch, N] @ [N, 2*n_active] matmul.
 
-This is exact (it IS the DFT), keeps every symbol in one MXU contraction, and
+This is exact (it IS the DFT), keeps every symbol in one contraction, and
 batches over (streams x frames x symbols) for free. Precision: the TX
-direction runs at HIGHEST (float32 to ~1e-6, the waveform contract); the RX
-direction (time_to_spec / time_to_spec_bins) runs the 3-pass bf16 split
-dot_bf16x3 (~1e-5 relative, lo*lo term dropped) shared with the Pallas
-kernel so both receive paths stay decision-identical — RX decisions are
-thresholded with margin far above 1e-5.
+direction runs at HIGHEST (full float32 on every backend, ~1e-6, the
+waveform contract); the RX direction (time_to_spec / time_to_spec_bins)
+runs the 3-pass bf16 split dot_bf16x3 (see there) — RX decisions are
+thresholded with margins far above its error.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ def _rx_matrix_for_bins(profile: OfdmProfile, bins: tuple[int, ...]) -> np.ndarr
 
     Splitting the RX transform per bin-group (data vs pilot) folds the
     subcarrier selection into the contraction itself — no per-symbol gathers
-    downstream, which XLA lowers poorly on TPU."""
+    downstream."""
     n = profile.fft_size
     k = np.asarray(bins)[None, :].astype(np.float64)
     t = np.arange(n)[:, None].astype(np.float64)
@@ -75,8 +74,7 @@ def tx_data_tables(profile: OfdmProfile) -> tuple[np.ndarray, np.ndarray]:
     Folds three steps of modulateOFDM (modem.js:322-362) into ONE matmul
     plus a broadcast add:
       * the scatter of mapped data points into the active-bin spectrum
-        (a gather/scatter XLA lowers poorly on TPU) becomes row selection
-        of the TX DFT matrix, precomputed on host;
+        becomes row selection of the TX DFT matrix, precomputed on host;
       * the pilot bins (always 1+0j, modem.js:338-341) become a constant
         time-domain row, precomputed in float64;
       * the cyclic prefix (modem.js:202-208) becomes cyclic column
@@ -112,7 +110,7 @@ def synthesize_data_symbols(
     data_re: jnp.ndarray, data_im: jnp.ndarray, profile: OfdmProfile
 ) -> jnp.ndarray:
     """Mapped data points [..., n_data] -> CP-prefixed symbol [..., symbol_len]
-    in one MXU contraction (see tx_data_tables)."""
+    in one matmul contraction (see tx_data_tables)."""
     mat, pilot_row = tx_data_tables(profile)
     stacked = jnp.concatenate([data_re, data_im], axis=-1).astype(jnp.float32)
     return jnp.matmul(stacked, mat, precision=_PRECISION) + pilot_row
@@ -125,19 +123,18 @@ def spec_to_time(spec_re: jnp.ndarray, spec_im: jnp.ndarray, profile: OfdmProfil
 
 
 def dot_bf16x3(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
-    """~f32-accurate matmul as three 1-pass bf16 MXU products (explicit
-    bf16x3 split, dropping the x_lo @ y_lo term, ~1e-5 relative error).
+    """~f32-accurate matmul as three products of bf16-split operands
+    (x_hi@y_hi + x_hi@y_lo + x_lo@y_hi, dropping x_lo@y_lo).
 
-    This is the ONE formulation of the receive-direction DFT, shared by the
-    XLA pipeline (here) and the Pallas kernels (kernels/receive.py), chosen
-    over Precision.HIGHEST (6 MXU passes on f32 inputs) because the demod
-    decisions it feeds are thresholded with >=0.1 margins — and over
-    Precision.HIGH because Mosaic's dot lowering does not implement it.
-    Sharing the exact op sequence keeps the kernel and XLA paths
-    decision-IDENTICAL even for noise-borderline bits (a kernel at bf16x3
-    vs XLA at HIGHEST statistically must disagree on bins that land within
-    ~1e-5 of a demap boundary). The transmit direction stays at HIGHEST:
-    TX waveforms carry a 3e-5 oracle tolerance with no decision margin."""
+    The receive-direction DFT; payload decisions are pinned to this op
+    sequence. All three products run at default precision: on a GPU that
+    is TF32 for float32 inputs, in which the hi x hi product is still exact
+    (bf16-representable operands, f32 accumulation) and the two lo-term
+    products carry TF32's ~2^-11 relative error on terms that are
+    themselves ~2^-8 of the result — ~2^-19 of a row in all. The demap
+    decisions it feeds have >= 0.1 margins. The transmit direction stays at
+    HIGHEST: TX waveforms carry a 3e-5 oracle tolerance with no decision
+    margin."""
     x_hi = x.astype(jnp.bfloat16).astype(jnp.float32)
     x_lo = x - x_hi
     y_hi = y.astype(jnp.bfloat16).astype(jnp.float32)

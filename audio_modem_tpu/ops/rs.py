@@ -4,7 +4,7 @@ The reference's protocol spec promises RS(255,223) forward error correction
 (docs/protocol_spec.md:56) but the implementation ships only CRC-32
 detection + repetition coding. This module provides the real thing: a
 systematic RS(255,223) codec (16-error-correcting), host-side (GF(256)
-arithmetic is table-driven byte work — control-plane, not TPU math), with
+arithmetic is table-driven byte work — control-plane, not device math), with
 encode/syndromes vectorized ACROSS codeword blocks in numpy so large chunked
 transfers encode in bulk.
 

@@ -1,17 +1,17 @@
-"""Chip-level parallelism: mesh construction + sharded stream-batch decode.
+"""Device-level parallelism: mesh construction + sharded stream-batch decode.
 
 The domain's parallel dimension is (streams x frames x symbols x subcarriers)
 — embarrassingly parallel (SURVEY §2 'parallelism inventory'). Data
-parallelism over the stream/frame batch is the first-class axis, sharded over
-ICI with jax.sharding; no tensor/pipeline/expert-parallel analog exists in
+parallelism over the stream/frame batch is the first-class axis, sharded with
+jax.sharding; no tensor/pipeline/expert-parallel analog exists in
 this domain (there is no model with weights), which we state rather than
-invent. Cross-chip communication is limited to final metric reductions
+invent. Cross-device communication is limited to final metric reductions
 (psum-style all-reduce), exactly as the physics of independent audio streams
 dictates.
 
-Fabric placement (scaling-book recipe): the stream batch shards over ICI
-within a host — zero steady-state cross-chip traffic since streams are
-independent — while DCN carries only multi-host batch INGEST (each host
+Fabric placement: the stream batch shards over the devices of a host —
+zero steady-state cross-device traffic since streams are independent —
+while the host-to-host network carries only multi-host batch INGEST (each host
 feeds its locally captured streams; there is no resharding) and the tiny
 result collectives. multihost.py runs this as a real
 jax.distributed.initialize cluster (N processes x M devices, one global

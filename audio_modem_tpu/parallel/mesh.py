@@ -11,7 +11,8 @@ STREAM_AXIS = "streams"
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
     """1-D mesh over available devices; the stream/frame batch shards across
-    it (ICI does the minimal cross-chip traffic this domain needs).
+    it (streams are independent, so cross-device traffic is minimal and
+    every device pair is equally close on an all-to-all host).
 
     Raises if fewer than ``n_devices`` devices exist — a silently smaller
     mesh would make "N-way sharded" claims vacuous (tests and the driver

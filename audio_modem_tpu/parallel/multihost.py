@@ -2,15 +2,14 @@
 
 SURVEY §2's parallelism table names "DCN for multi-host batch ingest" as the
 first-class distributed equivalent of this domain (the reference has no
-analog — app.js is a single browser thread). The layout follows the
-scaling-book recipe:
+analog — app.js is a single browser thread). The layout:
 
-  * ICI (fast, intra-host mesh links) carries the stream-batch sharding —
-    each chip owns a contiguous slab of independent audio streams, so
-    steady-state cross-chip traffic is ZERO;
-  * DCN (slow, host-to-host network) carries only (a) batch ingest — each
-    host feeds its own local streams, there is no resharding — and (b) the
-    tiny result collectives (scalar BER psum, decode-flag all-gather).
+  * intra-host device links carry the stream-batch sharding — each device
+    owns a contiguous slab of independent audio streams, so steady-state
+    cross-device traffic is ZERO;
+  * the host-to-host network carries only (a) batch ingest — each host
+    feeds its own local streams, there is no resharding — and (b) the tiny
+    result collectives (scalar BER psum, decode-flag all-gather).
 
 In JAX this is one GLOBAL mesh spanning every process's devices
 (jax.distributed.initialize + Mesh over jax.devices()); GSPMD places the
@@ -19,11 +18,12 @@ order puts same-host devices adjacent. Each process materializes only its
 local shard (jax.make_array_from_process_local_data) — the multi-host form
 of "the audio never leaves the host that captured it".
 
-This module is runnable as the child of the driver-facing
-``__graft_entry__.dryrun_multihost``: it launches N coordinator-connected
-processes x M virtual CPU devices and runs the SAME sharded loopback +
-full-pipeline decode step as the single-process dryrun, proving the sharded
-program compiles and executes across process boundaries.
+This is a multi-process dry run of jax.distributed, not a device path:
+``__graft_entry__.dryrun_multihost`` launches N coordinator-connected child
+processes x M virtual CPU devices (each child is pinned to the CPU on
+purpose) and runs the SAME sharded loopback + full-pipeline decode step as
+the single-process dryrun, proving the sharded program compiles and executes
+across process boundaries.
 """
 
 from __future__ import annotations

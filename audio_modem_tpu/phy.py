@@ -1,8 +1,9 @@
 """L2 OFDM PHY: batched modulate / demodulate / channel estimation.
 
-Re-design of modem.js:322-440 for TPU: every function is pure, shape-static,
-batched over a leading symbol (and optionally frame/stream) axis, and built
-from MXU contractions (active-bin DFT, constellation demap-as-matmul). No
+Re-design of modem.js:322-440 for an accelerator: every function is pure,
+shape-static, batched over a leading symbol (and optionally frame/stream)
+axis, and built from matmul contractions (active-bin DFT, constellation
+demap-as-matmul). No
 per-subcarrier Python loops anywhere.
 """
 
@@ -58,7 +59,7 @@ def modulate(bits: jnp.ndarray, mode: ModemMode) -> jnp.ndarray:
     n_sym = nb // mode.bits_per_symbol
     grouped = bits.reshape(*lead, n_sym, mode.bits_per_symbol)
     data_re, data_im = con.map_bits(mode.constellation, grouped)  # [..., n_sym, n_data]
-    # One fused MXU contraction: data scatter + pilot insertion + Hermitian
+    # One fused matmul contraction: data scatter + pilot insertion + Hermitian
     # IFFT + cyclic prefix all folded into a precomputed [2*n_data,
     # symbol_len] matrix (ops/dft.tx_data_tables).
     return synthesize_data_symbols(data_re, data_im, p)

@@ -22,8 +22,7 @@ from audio_modem_tpu.framing import DataFrame, MetaFrame
 class AsyncBatchWriter:
     """Background sqlite landing thread shared by many assemblers.
 
-    The 500 MB soak (docs/soak_r4_500mb.json) spent most of multi_consume's
-    wall in executemany+commit — disk IO serialized onto the decode thread.
+    Inline executemany+commit serializes disk IO onto the decode thread.
     sqlite3 releases the GIL during sqlite3_step, so moving the batch
     landings to one daemon thread overlaps them with host-side consume
     bookkeeping; a single FIFO queue + single thread preserves per-
@@ -110,13 +109,12 @@ class ChunkAssembler:
             # WAL + synchronous=NORMAL: group commits become O(memcpy) —
             # crash-consistent (WAL replays or truncates atomically; NORMAL
             # can only lose the tail commit on power loss, never corrupt),
-            # and ~20x faster per-chunk stores at 500 MB-soak scale.
+            # and far cheaper per-chunk stores.
             self._db.execute("PRAGMA journal_mode=WAL")
             self._db.execute("PRAGMA synchronous=NORMAL")
             # No mid-stream checkpoints: with the default autocheckpoint,
             # every ~4 MB of stored chunks forces a WAL->db copy INSIDE the
-            # streaming loop (measured 40 vs 11 us/chunk at 500 MB soak
-            # volume). Checkpoints instead run at transfer boundaries
+            # streaming loop. Checkpoints instead run at transfer boundaries
             # (handle_metadata) and cleanup(), so the WAL holds at most one
             # transfer's volume of pages — the same disk the chunks occupy.
             self._db.execute("PRAGMA wal_autocheckpoint=0")
@@ -235,10 +233,9 @@ class ChunkAssembler:
 
         Durability is deferred: rows buffer on the host and land in sqlite
         as one executemany + commit per _FLUSH_ROWS batch (the per-round
-        ``commit()`` is a no-op until the buffer fills). Measured at 500 MB
-        soak scale: per-chunk execute + per-round commit cost ~97 us/chunk
-        (77% of the soak wall); batched executemany + ~512 KB transactions
-        run ~28 us/chunk at the same synchronous=NORMAL durability. Reads
+        ``commit()`` is a no-op until the buffer fills), instead of one
+        execute per chunk and one commit per round, at the same
+        synchronous=NORMAL durability. Reads
         flush the buffer first, so assemble()/_iter_chunks stay exact; a
         crash loses at most _FLUSH_ROWS chunks per stream, which resume
         re-reports as missing (same recovery story as the previous

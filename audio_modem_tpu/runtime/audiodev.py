@@ -5,8 +5,8 @@ The reference actually moves sound through speakers and microphones:
 AudioContext playback (app.js:161-176, 305-316) and getUserMedia capture at
 44.1 kHz with echoCancellation/noiseSuppression/autoGainControl disabled
 (app.js:349-356, 1068-1075). This module closes that capability gap for
-hosts that HAVE audio hardware, while staying import-guarded so the
-TPU-image CI (which has none) never needs it.
+hosts that HAVE audio hardware, while staying import-guarded so hosts
+without audio libraries (CI, accelerator machines) never need it.
 
 Design: every backend presents as a plain binary PCM stream — ``.read(n)``
 for capture, ``.write(bytes)``/``.flush()`` for playback — so

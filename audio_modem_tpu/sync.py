@@ -1,14 +1,14 @@
 """Preamble synchronization: Schmidl-Cox autocorrelation + xcorr refinement.
 
 Re-design of modem.js:235-319 and the fine search of modem.js:567-588 for
-TPU. The reference's O(1)-per-sample sliding recurrences are sequential;
-here everything is parallel over positions, streams and frames:
+an accelerator. The reference's O(1)-per-sample sliding recurrences are
+sequential; here everything is parallel over positions, streams and frames:
 
 * window sums via doubling decomposition (exact pairwise trees, no
   long-range float32 cancellation, no O(T*window) conv) — optionally only
   at stride-aligned positions for the coarse scan;
-* template cross-correlation as a block-Toeplitz MXU matmul against a
-  128-row lane-shifted template bank (sliding_correlate).
+* template cross-correlation as a block-Toeplitz matmul against a
+  128-row shifted template bank (sliding_correlate).
 
 All functions take a traced ``n_valid`` so one compiled executable serves
 any signal length within a padding bucket.
@@ -128,7 +128,7 @@ def detect_preamble(
     f32 [...]); best_idx = -1 when best_metric <= 0.5.
 
     ``stride`` > 1 evaluates the metric only at stride-aligned positions —
-    exact window sums, ~stride-times less HBM traffic. Safe whenever
+    exact window sums, ~stride-times less device-memory traffic. Safe whenever
     stride <= CP_LEN/4: the preamble's metric plateau is CP_LEN+1 positions
     wide (every window start for which [d, d+512) lies inside CP+body), so a
     stride-aligned point always lands on it, and the ±3*CP xcorr refinement
@@ -201,10 +201,10 @@ def _template_bank(profile: OfdmProfile) -> np.ndarray:
 def sliding_correlate(x: jnp.ndarray, profile: OfdmProfile) -> jnp.ndarray:
     """corr[d] = sum_j x[d+j] * pre1[j] for every d: [..., L] -> [..., L-plen+1].
 
-    Block-Toeplitz MXU formulation: for d = 128q + r,
+    Block-Toeplitz matmul formulation: for d = 128q + r,
     corr[d] = (x row-block starting at 128q, width W) . bank[r], so the whole
-    correlation is one [n_tiles, W] @ [W, 128] matmul per signal — MXU work
-    instead of XLA's O(L*plen) conv lowering (~100x faster at these shapes).
+    correlation is one [n_tiles, W] @ [W, 128] matmul per signal instead of
+    an O(L*plen) sliding-window conv.
     The overlapping row-blocks come from concatenating W/128 consecutive
     non-overlapping 128-blocks (static slices, no gathers).
     """
@@ -232,7 +232,7 @@ def detect_preamble_xcorr(
     The reference's fallback for when autocorrelation fails (used by the
     loopback analyzer, modem.js:980-984): correlate against the regenerated
     preamble-1 template. The reference scans coarsely (step = pLen/10) then
-    finely around the winner; on TPU the dense scan is one correlation conv,
+    finely around the winner; here the dense scan is one correlation matmul,
     so we evaluate every position directly — a strict superset of the
     reference's two-pass search, same 0.15 threshold.
 
@@ -242,7 +242,7 @@ def detect_preamble_xcorr(
     plen = profile.symbol_len
     t = signal.shape[-1]
     s = signal.astype(jnp.float32)
-    corr = sliding_correlate(s, profile)  # block-Toeplitz MXU matmul
+    corr = sliding_correlate(s, profile)  # block-Toeplitz matmul
     s_energy = windowed_sum(s * s, plen)
     denom = jnp.sqrt(s_energy * t_energy)
     d = jnp.arange(t - plen + 1)
@@ -279,7 +279,7 @@ def refine_xcorr(
     hi = jnp.minimum(n_valid - plen, coarse_idx + radius)
 
     region = jax.lax.dynamic_slice(signal, (lo,), (region_len,)).astype(jnp.float32)
-    corr = sliding_correlate(region, profile)  # block-Toeplitz MXU matmul
+    corr = sliding_correlate(region, profile)  # block-Toeplitz matmul
     s_energy = windowed_sum(region * region, plen)
     denom = jnp.sqrt(s_energy * t_energy)
 

@@ -1,6 +1,6 @@
 // Native host runtime for audio_modem_tpu.
 //
-// The TPU owns every sample-rate DSP loop; what remains on the host is
+// The device owns every sample-rate DSP loop; what remains on the host is
 // control-plane byte work and the few genuinely sequential per-sample
 // recurrences of the streaming ingest path. Those live here:
 //

@@ -61,7 +61,7 @@ def _constellation_points(name: str) -> np.ndarray:
 def modulate_ofdm(bits: np.ndarray, mod_name: str, p: OfdmProfile) -> np.ndarray:
     """modem.js:322-362 — bits -> [num_symbols, symbol_len] float32."""
     pts = _constellation_points(mod_name)
-    bps = {"BPSK": 1, "QPSK": 2, "QAM16": 4}[mod_name]
+    bps = {"BPSK": 1, "QPSK": 2, "QAM16": 4, "QAM64": 6}[mod_name]
     n_data = p.num_data_subs
     bits_per_symbol = n_data * bps
     bits = np.asarray(bits, dtype=np.int64)
@@ -275,7 +275,7 @@ def estimate_channel(ce_samples: np.ndarray, p: OfdmProfile) -> np.ndarray:
 def demodulate_ofdm(signal: np.ndarray, mod_name: str, ch: np.ndarray, p: OfdmProfile) -> np.ndarray:
     """modem.js:365-418 — per-symbol FFT, ZF EQ, pilot phase fix, demap."""
     pts = _constellation_points(mod_name)
-    bps = {"BPSK": 1, "QPSK": 2, "QAM16": 4}[mod_name]
+    bps = {"BPSK": 1, "QPSK": 2, "QAM16": 4, "QAM64": 6}[mod_name]
     active = np.arange(p.sub_start, p.sub_end + 1)
     pilot_mask = np.isin(active, np.asarray(p.pilots))
     n_sym = len(signal) // p.symbol_len

@@ -1,13 +1,13 @@
 """Device-free microbench of BatchReceiver._consume_multi at soak volume.
 
-The r4 500 MB hardware soak spent 29.5 s (77% of wall) in multi_consume —
-120 us/chunk, vs 36 us/chunk at 50 MB — so the cost grows with transfer
-volume. This drives _consume_multi directly with synthetic packed result
+Host consume cost per chunk can grow with transfer volume. This drives
+_consume_multi directly with synthetic packed result
 matrices (wire-exact CRC-valid chunk payload rows at the steady-state
 cadence) for the full config-5 shape: 64 streams x 3818 chunks, sqlite
 assemblers, speculative (spec_gens) rounds — zero device work, pure host
 attribution. Prints us/chunk per quarter of the transfer so volume
-dependence is visible, plus gc stats.
+dependence is visible, plus gc stats. Pinned to the CPU on purpose: it is
+a host-only microbenchmark.
 
 Usage: python tools/bench_consume.py [n_streams] [chunks_per_stream]
 """
@@ -27,7 +27,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from audio_modem_tpu import framing
 from audio_modem_tpu.configs import MODES
